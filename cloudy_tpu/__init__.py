@@ -1,7 +1,8 @@
-"""cloudy_tpu — a TPU-native moment-based cloud-microphysics solver.
+"""cloudy_tpu — a moment-based cloud-microphysics solver.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of CliMA/Cloudy.jl
-(reference layer map in SURVEY.md): moment closures over particle-mass
+A from-scratch JAX framework (XLA, Pallas through Triton on the GPU) with the
+capabilities of CliMA/Cloudy.jl (reference layer map in SURVEY.md): moment
+closures over particle-mass
 distributions, collision--coalescence (Smoluchowski) moment tendencies,
 condensation/evaporation, sedimentation, and 0-D box / 1-D rainshaft / parcel
 drivers — all expressed as dense batched arrays under `jit`, scaling from one
@@ -18,7 +19,7 @@ Design notes
   is closed-form and branch-free (`jnp.where`).
 - The analytical coalescence path (reference src/Sources/Coalescence.jl:115-455)
   is compiled to a single batched bilinear form: one ``[B, D^2] x [D^2, n_out]``
-  matmul per step — MXU-friendly by construction.
+  matmul per step.
 - Everything is jit-compiled with static shapes; time integration is an SSP-RK
   loop under `lax.scan`.
 """

@@ -8,8 +8,8 @@ BUILD-NEW equivalent designed for this framework's two structural advantages:
 
 1. **The forward model is a batched JAX program.** An EKI ensemble of J
    parameter vectors is evaluated as ONE `jax.vmap`-batched forward pass —
-   J trajectories integrate in a single `lax.scan` on-device (columns on
-   VPU lanes, matmuls on the MXU), instead of J independent model runs
+   J trajectories integrate in a single `lax.scan` on the device, instead
+   of J independent model runs
    round-tripping through a host-side calibration driver.
 2. **The forward model is differentiable** (tests/test_autodiff.py), so
    gradient-based fitting (`fit_gradient`, optax) is available as well —
@@ -39,6 +39,9 @@ from typing import Callable, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
+#: f32 matmuls at full precision: a GPU may otherwise run them in TF32
+_HI = jax.lax.Precision.HIGHEST
+
 
 class EKIResult(NamedTuple):
     """`theta`: final ensemble [J, P]. `theta_history`: [n_iters+1, J, P].
@@ -66,15 +69,15 @@ def eki_step(theta, g, y, noise_cov, key):
     theta: [J, P] parameter ensemble; g: [J, D] forward evaluations G(θ);
     y: [D] observations; noise_cov: scalar | [D] | [D, D]. Returns the
     updated [J, P] ensemble. All covariance work is two small matmuls and
-    one Cholesky solve of a [D, D] system — MXU-friendly, J-batched."""
+    one Cholesky solve of a [D, D] system, J-batched."""
     J, _ = theta.shape
     d = y.shape[0]
     gamma = _as_cov(noise_cov, d, theta.dtype)
 
     th_a = theta - jnp.mean(theta, axis=0, keepdims=True)  # [J, P]
     g_a = g - jnp.mean(g, axis=0, keepdims=True)  # [J, D]
-    c_thg = th_a.T @ g_a / (J - 1)  # [P, D]
-    c_gg = g_a.T @ g_a / (J - 1)  # [D, D]
+    c_thg = jnp.matmul(th_a.T, g_a, precision=_HI) / (J - 1)  # [P, D]
+    c_gg = jnp.matmul(g_a.T, g_a, precision=_HI) / (J - 1)  # [D, D]
 
     eta = jax.random.multivariate_normal(
         key, jnp.zeros(d, theta.dtype), gamma, (J,), method="svd"
@@ -84,7 +87,7 @@ def eki_step(theta, g, y, noise_cov, key):
     sol = jax.scipy.linalg.solve(
         c_gg + gamma, resid.T, assume_a="pos"
     )  # [D, J]
-    return theta + (c_thg @ sol).T
+    return theta + jnp.matmul(c_thg, sol, precision=_HI).T
 
 
 def run_eki(
@@ -317,21 +320,31 @@ def run_eks(
         e = g - g_mean[None, :]  # [J, D]
         r = g - y[None, :]  # [J, D]
         # D_jk = ⟨Γ⁻¹ r_j, e_k⟩ / J
-        d_mat = (jnp.linalg.solve(gamma, r.T).T @ e.T) / nj  # [J, J]
+        d_mat = jnp.matmul(
+            jnp.linalg.solve(gamma, r.T).T, e.T, precision=_HI
+        ) / nj  # [J, J]
         dt = dt0 / (jnp.linalg.norm(d_mat) + 1e-8)
         th_a = theta - jnp.mean(theta, axis=0, keepdims=True)
         # explicit data drift + Nüsken/Reich finite-J correction
-        theta_star = theta - dt * d_mat @ theta + dt * ((p + 1) / nj) * th_a
-        cov = th_a.T @ th_a / nj  # [P, P]
+        theta_star = (
+            theta
+            - dt * jnp.matmul(d_mat, theta, precision=_HI)
+            + dt * ((p + 1) / nj) * th_a
+        )
+        cov = jnp.matmul(th_a.T, th_a, precision=_HI) / nj  # [P, P]
         # implicit prior drift: (I + Δt C Γ₀⁻¹) θ⁺ = θ* + Δt C Γ₀⁻¹ r₀
-        cg0 = cov @ jnp.linalg.solve(gamma0, eye_p)  # C Γ₀⁻¹
+        cg0 = jnp.matmul(
+            cov, jnp.linalg.solve(gamma0, eye_p), precision=_HI
+        )  # C Γ₀⁻¹
         lhs = eye_p + dt * cg0
-        rhs = theta_star + dt * (cg0 @ r0)[None, :]
+        rhs = theta_star + dt * jnp.matmul(cg0, r0, precision=_HI)[None, :]
         theta_next = jnp.linalg.solve(lhs, rhs.T).T
         # Langevin noise ~ N(0, 2Δt C)
         chol = jnp.linalg.cholesky(cov + 1e-12 * eye_p)
         xi = jax.random.normal(k, (nj, p), theta0.dtype)
-        theta_next = theta_next + jnp.sqrt(2.0 * dt) * xi @ chol.T
+        theta_next = theta_next + jnp.sqrt(2.0 * dt) * jnp.matmul(
+            xi, chol.T, precision=_HI
+        )
         return theta_next, (theta, misfit(g))
 
     keys = jax.random.split(key, n_iters)
@@ -430,11 +443,13 @@ def run_uki(
         g_mean = jnp.mean(g, axis=0)
         th_a = pts - m_hat[None, :]
         g_a = g - g_mean[None, :]
-        c_thg = th_a.T @ g_a / (2 * p)  # [P, D]
-        c_gg = g_a.T @ g_a / (2 * p) + 2.0 * gamma  # [D, D], Σ_ν = 2Γ
+        c_thg = jnp.matmul(th_a.T, g_a, precision=_HI) / (2 * p)  # [P, D]
+        c_gg = (
+            jnp.matmul(g_a.T, g_a, precision=_HI) / (2 * p) + 2.0 * gamma
+        )  # [D, D], Σ_ν = 2Γ
         kal = jax.scipy.linalg.solve(c_gg, c_thg.T, assume_a="pos").T  # [P, D]
-        m_next = m_hat + kal @ (y - g_mean)
-        c_next = c_hat - kal @ c_thg.T
+        m_next = m_hat + jnp.matmul(kal, y - g_mean, precision=_HI)
+        c_next = c_hat - jnp.matmul(kal, c_thg.T, precision=_HI)
         c_next = 0.5 * (c_next + c_next.T)
         return (m_next, c_next), (m, c, misfit(g_mean))
 

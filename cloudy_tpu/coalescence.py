@@ -1,6 +1,6 @@
 """Collision–coalescence moment tendencies (analytical path).
 
-TPU-native redesign of the reference's analytical SCE path
+Array-native redesign of the reference's analytical SCE path
 (src/Sources/Coalescence.jl:45-455). The reference evaluates Q (cross-mode
 gain), R (loss) and S (self-collision split by a mass threshold) as nested
 NTuple sums per mode pair and moment order. Here the *entire* Q/R/S assembly
@@ -13,7 +13,7 @@ one batched bilinear form:
 with Mf the flattened dense diagnostic moment matrix ([n_modes, P+2] moments
 per mode) and F2 the per-mode "finite 2-D integrals" (autoconversion partial
 integrals, clamped). On a batch of columns this is a single
-``[B, D²] × [D², n_out]`` matmul — exactly the shape the MXU wants — plus one
+``[B, D²] × [D², n_out]`` matmul plus one
 small ``[M, G] × [G, M]`` Simpson/incomplete-gamma contraction per thresholded
 mode for F2.
 
@@ -34,6 +34,7 @@ import math
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from cloudy_tpu.spec import Family, SpectrumSpec
@@ -42,6 +43,9 @@ from cloudy_tpu.kernels import CoalescenceTensor
 from cloudy_tpu.ops import special
 from cloudy_tpu.ops.simpson import simpson_even_fast_weights_dynamic
 from cloudy_tpu.distributions import threshold_log_grid
+
+#: f32 matmuls at full precision: a GPU may otherwise run them in TF32
+_HI = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,7 +189,7 @@ def build_coalescence_data(
       golden-gated configuration). Explicit kwargs still win: the three
       numeric knobs default to the None sentinel, so ANY explicitly passed
       value — including 0 (series/CF gammainc) or 128 — is honored under
-      fast_tier (ADVICE r4).
+      fast_tier.
     """
     if fast_tier:
         f2_exact = True
@@ -328,7 +332,7 @@ def _msh_matrix_gamma(n, theta, k, thr, M: int, n_points_max: int, iters: int,
         ys.append(ys[-1] * x)
     Y = jnp.stack(ys, axis=-2)  # [..., M(p), G]
 
-    raw = jnp.einsum("...pg,...qg->...pq", Y, GI) * dx[..., None, None]
+    raw = jnp.einsum("...pg,...qg->...pq", Y, GI, precision=_HI) * dx[..., None, None]
 
     # prefactor per q: n² θ^{q−k} Γ(q+k) / Γ(k)²
     q = jnp.arange(M, dtype=dtype)
@@ -377,8 +381,8 @@ def _msh_matrix_gamma_exact(n, theta, k, thr, M: int, iters: int,
     # Poisson terms d_j = x^{2k+j} e^{−x}/Γ(2k+j+1), j = 0..2M−3, built
     # upward multiplicatively from one exp/lgamma. The GL fast tier uses
     # the 1-divide Stirling-shift lgamma (< 4e-9 abs, far inside the
-    # path's 2.6e-7 gammainc bound; divides measured ~9 mul-slots on the
-    # v5e — round-5 calibration); the f64 parity tier keeps Lanczos.
+    # path's 2.6e-7 gammainc bound; Lanczos costs 8 divides); the f64
+    # parity tier keeps Lanczos.
     lgam = special.lgamma_stirling if gl_nodes else special.lgamma
     lga01 = lgam(a0 + 1.0)
     d = special.exp(a0 * log_x - x - lga01)
@@ -456,7 +460,7 @@ def _msh_matrix_lognormal(n, mu, sig, thr, M: int, n_points_max: int,
         ys.append(ys[-1] * x)
     Y = jnp.stack(ys, axis=-2)  # [..., M(p), G]
 
-    raw = jnp.einsum("...pg,...qg->...pq", Y, pm) * dx[..., None, None]
+    raw = jnp.einsum("...pg,...qg->...pq", Y, pm, precision=_HI) * dx[..., None, None]
     return raw * (n[..., None, None] ** 2)
 
 
@@ -467,7 +471,7 @@ LOGNORM_WINDOW_SIGMA = 6.0
 
 def _msh_matrix_lognormal_window(n, mu, sig, thr, M: int, gl_nodes: int):
     """Density-recentered Gauss–Legendre evaluation of the lognormal
-    autoconversion matrix — the proven-bound fast path (VERDICT r3 #6).
+    autoconversion matrix — the proven-bound fast path.
 
     The reference-shaped grid (`_msh_matrix_lognormal`) spreads its nodes
     over the FULL [1e-5·T, T] log interval; when σ is small the density
@@ -534,7 +538,7 @@ def _msh_matrix_lognormal_window(n, mu, sig, thr, M: int, gl_nodes: int):
         ys.append(ys[-1] * x)
     Y = jnp.stack(ys, axis=-2)  # [..., M(p), G]
 
-    raw = jnp.einsum("...pg,...qg->...pq", Y, pm)
+    raw = jnp.einsum("...pg,...qg->...pq", Y, pm, precision=_HI)
     return raw * (n[..., None, None] ** 2)
 
 
@@ -679,8 +683,8 @@ def get_coal_ints(data: CoalescenceData, params, wb=None, wf=None) -> jnp.ndarra
     wf = jnp.asarray(wf, dtype).reshape(
         spec.n_tot, spec.n_modes * data.M * data.M
     ).T
-    out = outer.reshape(batch + (D * D,)) @ wb
-    out = out + f2.reshape(batch + (-1,)) @ wf
+    out = jnp.matmul(outer.reshape(batch + (D * D,)), wb, precision=_HI)
+    out = out + jnp.matmul(f2.reshape(batch + (-1,)), wf, precision=_HI)
     return out
 
 
@@ -720,8 +724,12 @@ def make_kernel_diff_coal_fn(data: CoalescenceData):
 
     def fn(params, kernels):
         kflat = jnp.asarray(kernels).reshape(-1)
-        wb = (kflat @ jnp.asarray(wb_basis, kflat.dtype)).reshape(data.wb.shape)
-        wf = (kflat @ jnp.asarray(wf_basis, kflat.dtype)).reshape(data.wf.shape)
+        wb = jnp.matmul(
+            kflat, jnp.asarray(wb_basis, kflat.dtype), precision=_HI
+        ).reshape(data.wb.shape)
+        wf = jnp.matmul(
+            kflat, jnp.asarray(wf_basis, kflat.dtype), precision=_HI
+        ).reshape(data.wf.shape)
         return get_coal_ints(data, params, wb=wb, wf=wf)
 
     return fn

@@ -22,11 +22,15 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from cloudy_tpu.spec import Family, SpectrumSpec
 from cloudy_tpu import distributions as pdists
 from cloudy_tpu.ops.gauss import gauss_legendre
+
+#: f32 matmuls at full precision: a GPU may otherwise run them in TF32
+_HI = jax.lax.Precision.HIGHEST
 
 
 def support_bounds(spec: SpectrumSpec, params) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -193,8 +197,10 @@ def get_coal_ints_numerical(
 
     # ---- R: inner ∫ K(x,y) f_j(y) dy on the same log grid -----------------
     Kxy = kernel_func(X[..., :, None], X[..., None, :])  # [..., Gx, Gy]
-    A = jnp.einsum("...xy,...jy,...y->...jx", Kxy, F, WX)  # [..., N, Gx]
-    R = jnp.einsum("...x,...mx,...kx,...jx->...mjk", WX, Xpow, F, A)
+    A = jnp.einsum("...xy,...jy,...y->...jx", Kxy, F, WX, precision=_HI)  # [..., N, Gx]
+    R = jnp.einsum(
+        "...x,...mx,...kx,...jx->...mjk", WX, Xpow, F, A, precision=_HI
+    )
 
     # ---- Q and S: triangular inner integrals y = s·x ----------------------
     XS = X[..., :, None] * S  # y nodes      [..., Gx, Gs]
@@ -206,15 +212,22 @@ def get_coal_ints_numerical(
     KW = 0.5 * Kq * WS  # [..., Gx, Gs]
 
     # cross-mode gain: G[j,k,x] symmetric under j<->k by construction
-    Gjk = jnp.einsum("...xs,...jxs,...kxs->...jkx", KW, D, E)
+    Gjk = jnp.einsum("...xs,...jxs,...kxs->...jkx", KW, D, E, precision=_HI)
     Gjk = Gjk + jnp.swapaxes(Gjk, -3, -2)
     # Σ_x WX x^{m+1} G   (extra x = inner Jacobian)
-    Q = jnp.einsum("...x,...mx,...x,...jkx->...mjk", WX, Xpow, X, Gjk)
+    Q = jnp.einsum(
+        "...x,...mx,...x,...jkx->...mjk", WX, Xpow, X, Gjk, precision=_HI
+    )
 
     # self-collision gain per mode
-    Gkk = jnp.einsum("...xs,...kxs,...kxs->...kx", KW, D, E)
-    S1 = jnp.einsum("...x,...mx,...x,...kx,...kx->...mk", WX, Xpow, X, wfrac, Gkk)
-    Stot = jnp.einsum("...x,...mx,...x,...kx->...mk", WX, Xpow, X, Gkk)
+    Gkk = jnp.einsum("...xs,...kxs,...kxs->...kx", KW, D, E, precision=_HI)
+    S1 = jnp.einsum(
+        "...x,...mx,...x,...kx,...kx->...mk", WX, Xpow, X, wfrac, Gkk,
+        precision=_HI,
+    )
+    Stot = jnp.einsum(
+        "...x,...mx,...x,...kx->...mk", WX, Xpow, X, Gkk, precision=_HI
+    )
     S2 = Stot - S1
 
     # ---- gated assembly (reference :479-488 + zero-structure :503-622) ----

@@ -1,6 +1,6 @@
 """Particle mass distributions: the moment closure (reference layer L2).
 
-TPU-native redesign of the reference's ParticleDistributions module
+Array-native redesign of the reference's ParticleDistributions module
 (src/ParticleDistributions/ParticleDistributions.jl): instead of per-mode
 immutable structs dispatched at runtime, a spectrum is a *static*
 `SpectrumSpec` (family per mode) plus a dense parameter array
@@ -22,6 +22,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import scipy.special
+import jax
 import jax.numpy as jnp
 
 from cloudy_tpu.spec import Family, SpectrumSpec
@@ -545,7 +547,13 @@ def compute_thresholds(
             else:
                 thr = th * special.gammaincinv(k, p)
         elif fam == Family.LOGNORMAL:
-            thr = special.exp(th + k * special.ndtri(p))  # (μ, σ) layout
+            # static percentiles: the exact quantile, computed on the host
+            z = (
+                special.ndtri(p)
+                if isinstance(percentiles[i], jax.Array)
+                else float(scipy.special.ndtri(percentiles[i]))
+            )
+            thr = special.exp(th + k * z)  # (μ, σ) layout
         elif fam == Family.MONODISPERSE:
             thr = th
         out.append(jnp.maximum(thr, minx))

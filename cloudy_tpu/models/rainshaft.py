@@ -16,7 +16,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from cloudy_tpu.spec import SpectrumSpec, get_moments_normalizing_factors
@@ -75,10 +74,8 @@ def make_rainshaft_rhs(
     case with a semi-analytic solution).
 
     ``coal_fn`` overrides the XLA coalescence path with a batched
-    ``mom_norm [B, n_tot] -> [B, n_tot]`` tendency function — e.g. a fused
-    Pallas kernel (ops.pallas_coalescence / ops.pallas_numerical); the
-    flattened batch (ensemble × nz) must then be a multiple of the kernel's
-    ``block_cols``.
+    ``mom_norm [B, n_tot] -> [B, n_tot]`` tendency function — e.g. the
+    RHS-only Triton kernel (`ops.triton_coalescence.make_triton_coal_fn`).
     """
     spec = config.spec
     mom_norms = get_moments_normalizing_factors(spec.nprogmoms, config.norms)
@@ -120,66 +117,19 @@ def make_rainshaft_rhs(
     return rhs
 
 
-def make_rainshaft_rhs_fused(config: RainshaftConfig, fused_fn):
-    """RHS over physical moments in the FLAT structure-of-arrays layout
-    ``[n_tot, B]`` (B = n_columns·nz, z contiguous/fastest within each
-    column) via the fully fused Pallas RHS kernel
-    (`ops.pallas_coalescence.make_pallas_rainshaft_rhs_fn`): one kernel
-    launch computes both the coalescence tendency and the per-level
-    sedimentation flux; the only XLA ops left per evaluation are the upwind
-    flux divergence (the single z-coupling term) and the add.
-
-    Why FLAT: the flat layout is simultaneously the Pallas kernel's native
-    layout AND fully aligned to the TPU's (8, 128) vector tiling, so no
-    transposes, reshapes or relayouts appear anywhere in the step. Measured
-    on the v5e (PROFILE.json): a ``[n_tot, E, nz]`` state with nz = 32 on
-    the lane dimension costs ~2.9 ms/RHS in relayouts around the kernel
-    call — ~7x the kernel itself; the flat formulation removes it. The
-    divergence becomes a lane-shift: level i's upstream flux F[i+1] is the
-    next flat element within the column (z is contiguous), zeroed at each
-    column's top level by a periodic iota mask — replicating the padded
-    `jnp.diff` of `make_rainshaft_rhs` exactly (reference
-    rainshaft_helpers.jl:80-86).
-
-    Physics identical to `make_rainshaft_rhs` (same reference semantics,
-    rainshaft_helpers.jl:45-89); parity pinned in tests/test_pallas.py.
-    ``B`` must be a multiple of the kernel's `block_cols` and of nz.
-    """
-    n_tot = config.spec.n_tot
-    nz = config.nz
-    # multiply by the precomputed reciprocal, NOT divide: the whole-step
-    # Pallas kernel uses `* inv_dz`, and a 1-ulp x/dz-vs-x*(1/dz) difference
-    # flips the monodisperse F2 knife-edge (p1 < T/2) in parity tests
-    inv_dz = 1.0 / float(config.dz)
-
-    def rhs(mom, t):
-        del t
-        B = mom.shape[-1]
-        out = fused_fn.soa(mom)
-        coal, flux = out[:n_tot], out[n_tot:]
-        # upwind divergence, downward transport, zero influx at top (:80-86):
-        # F[i+1] is the next lane within the column; the column's last level
-        # (its top) sees zero inflow
-        j = jax.lax.broadcasted_iota(jnp.int32, (1, B), 1)
-        top = (j % nz) == (nz - 1)
-        f_up = jnp.where(top, 0.0, jnp.roll(flux, -1, axis=-1))
-        return coal - (f_up - flux) * inv_dz
-
-    return rhs
-
-
 def to_soa(state):
-    """``[..., nz, n_tot]`` (framework layout) → flat SoA ``[n_tot, B]``
-    with z contiguous within each column (the fused-step layout)."""
-    s = jnp.moveaxis(jnp.asarray(state), -1, 0)
-    return s.reshape(s.shape[0], -1)
-
-
-def from_soa(state, nz: int):
-    """Flat SoA ``[n_tot, B]`` → ``[B // nz, nz, n_tot]``."""
+    """``[..., nz, n_tot]`` (framework layout) → level-major
+    ``[n_tot, nz, C]`` (C = the flattened leading axes): each (moment,
+    level) row holds every column contiguously — the production step's
+    layout (`ops.triton_coalescence.make_triton_rainshaft_step_fn`)."""
     s = jnp.asarray(state)
-    n_tot = s.shape[0]
-    return jnp.moveaxis(s.reshape(n_tot, -1, nz), 0, -1)
+    nz, n_tot = s.shape[-2:]
+    return jnp.transpose(s.reshape(-1, nz, n_tot), (2, 1, 0))
+
+
+def from_soa(state):
+    """Level-major ``[n_tot, nz, C]`` → ``[C, nz, n_tot]``."""
+    return jnp.transpose(jnp.asarray(state), (2, 1, 0))
 
 
 def run_rainshaft(config: RainshaftConfig, rhs, mom_init):

@@ -3,7 +3,9 @@
 `native/cloudy_golden.cc` is an independent C++ implementation of the
 analytical coalescence step (closure inversion + Simpson/incomplete-gamma
 autoconversion + Q/R/S) used as a cross-validation oracle and as the
-single-CPU-core baseline for bench.py. Built lazily with g++ and cached.
+single-CPU-core baseline for bench.py. Built with g++ at first use into
+`native/libcloudy_golden.so` (git-ignored) and rebuilt when the source is
+newer.
 """
 
 from __future__ import annotations
@@ -33,17 +35,12 @@ def build(force: bool = False) -> str:
         and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)
     ):
         return _LIB
-    cmd = [
-        "g++",
-        "-O3",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        "-o",
-        _LIB,
-        _SRC,
-    ]
+    # build beside the target and rename: concurrent test workers may
+    # build at once, and a half-written library must never be loaded
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp, _SRC]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _LIB)
     return _LIB
 
 

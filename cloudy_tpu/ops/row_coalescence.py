@@ -1,53 +1,42 @@
-"""Fused Pallas TPU kernels for the analytical coalescence step.
+"""Fused per-lane coalescence and rainshaft-step physics on row arrays.
 
-BUILD-NEW component (SURVEY.md §2): one kernel per block of columns fuses
+One physics body (`_make_coal_body`) evaluates, for every lane of a set of
+``[1, B]`` moment rows (in the kernels of `ops.triton_coalescence`, B is a
+program's block of columns),
 
     closure inversion → diagnostic moment recurrence → (per-column percentile
     thresholds for MovingThreshold) → Simpson/incomplete-gamma (or erf, or
     closed-form) autoconversion integrals (F2) → Q/R/S bilinear contraction
 
-entirely in VMEM/registers. The XLA einsum path (coalescence.py) materializes
-the ``[B, D²]`` outer product and ``[B, G, M]`` quadrature intermediates in
-HBM (~150 floats/column of traffic); this kernel reads ``n_tot`` floats per
-column and writes ``n_tot``.
+as straight-line elementwise `jax.numpy` code. Unlike the einsum path
+(coalescence.py), which materializes the ``[B, D²]`` outer product and the
+``[B, G, M]`` quadrature intermediates, every value here is a row (or a
+``[G, B]`` quadrature tile). The Q/R/S contraction unrolls over the *static
+nonzero* entries of the assembly weight tensors (typically 50-300 FMAs), not
+the dense D².
 
-Two entry points share one physics body (`_make_coal_body`):
+Building blocks of the kernels:
 
-- `make_pallas_coal_fn`: normalized moments → coalescence tendencies
-  (the RHS sub-operation bench.py measures).
-- `make_pallas_rainshaft_rhs_fn`: the FULL per-level rainshaft RHS —
-  physical moments in, physical (coalescence tendency, sedimentation flux)
-  out, with negative clipping, normalization, the empty-cell mask and the
-  fractional-moment flux (reference Sedimentation.jl:22-37) all fused into
-  the same kernel. The round-2 profile showed ~23x of each SSPRK33 stage
-  spent *outside* the coalescence kernel (XLA closure inversion + lgamma/exp
-  fractional moments per level for the flux, layout transposes at the
-  `coal_fn` boundary, normalize/denormalize passes); this kernel removes all
-  of it — the XLA remainder per stage is the upwind flux divergence and the
-  RK AXPYs, both trivially bandwidth-bound.
-
-Data layout: columns ride the TPU *lane* dimension (structure-of-arrays,
-``[n_tot, B]`` blocks of ``[n_tot, TB]``), so every physics step is an
-element-wise VPU op over a ``[1, TB]`` or ``[G, TB]`` tile. The Q/R/S
-contraction unrolls over the *static nonzero* entries of the assembly weight
-tensors (typically 50-300 FMAs), not the dense D².
+- `_make_coal_body`: normalized moment rows → coalescence tendency rows;
+- `make_local_rhs`: the level-local rainshaft RHS on physical rows (clip,
+  normalize, closure, coalescence, empty-cell mask, sedimentation flux);
+- `ssprk33_rows`: one SSPRK33 step of rows given the flux of the level
+  above — the only term that couples levels.
 
 Coverage — every configuration the XLA path accepts (reference parity:
 src/Sources/Coalescence.jl:115-185, ParticleDistributions.jl:557-625,721-761):
 
 - all four families (gamma, exponential, lognormal, monodisperse), both as
   thresholded and non-thresholded modes: gamma/exp F2 via the downward
-  incomplete-gamma recurrence, lognormal F2 via exact Φ partial moments
-  (`special.erf_impl` — lax.erf has no Mosaic lowering), monodisperse F2 in
-  closed form;
+  incomplete-gamma recurrence, lognormal F2 via exact Φ partial moments,
+  monodisperse F2 in closed form;
 - FixedThreshold (static per-mode quadrature grids precomputed host-side) and
-  MovingThreshold (per-column percentile thresholds computed in-kernel —
-  exp −θlog(1−p), gamma θ·P⁻¹(k,p) by damped Newton, lognormal exp(μ+σz_p),
-  mono θ — with the quadrature grid built in-kernel from each column's
-  threshold);
+  MovingThreshold (per-column percentile thresholds — exp −θlog(1−p), gamma
+  θ·P⁻¹(k,p) by damped Newton, lognormal exp(μ+σz_p), mono θ — with the
+  quadrature grid built from each column's threshold);
 - both quadrature rules ("reference": the reference's masked log-grid
   Simpson, bit-identical to the XLA path; "gauss": Gauss–Legendre on the same
-  log interval, the fast path bench.py runs).
+  log interval).
 """
 
 from __future__ import annotations
@@ -56,15 +45,14 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import scipy.special
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from cloudy_tpu.spec import Family, get_moments_normalizing_factors
 from cloudy_tpu.coalescence import CoalescenceData
+from cloudy_tpu.distributions import GAMMA_K_RANGE
 from cloudy_tpu.ops import special
-from cloudy_tpu.ops.pallas_numerical import _cache_bypass, _invert_rows
 from cloudy_tpu.ops.simpson import simpson_even_fast_weights
 
 
@@ -142,26 +130,69 @@ def _static_grid_gauss(threshold: float, n_nodes: int = 24):
     return x, w, 1.0
 
 
+def _invert_rows(fam: Family, rows, eps, gamma_k_range=GAMMA_K_RANGE):
+    """Closure inversion on [1, TB] rows (mirrors
+    distributions._invert_* / reference ParticleDistributions.jl:456-541).
+    `gamma_k_range` clips the gamma shape parameter; None bounds resolve to
+    (eps, +inf) as in distributions._invert_gamma."""
+    m0, m1 = rows[0], rows[1]
+    valid = (m0 > eps) & (m1 > eps)
+    m0s = jnp.where(valid, m0, 1.0)
+    m1s = jnp.where(valid, m1, 1.0)
+    if fam in (Family.EXPONENTIAL, Family.MONODISPERSE):
+        n = jnp.where(valid, m0, 0.0)
+        p1 = jnp.where(valid, m1s / m0s, 1.0)
+        return n, p1, jnp.zeros_like(p1)
+    m2 = rows[2]
+    if fam == Family.GAMMA:
+        k_lo = eps if gamma_k_range[0] is None else gamma_k_range[0]
+        k_hi = np.inf if gamma_k_range[1] is None else gamma_k_range[1]
+        m2s = jnp.where(valid, m2, 2.0)
+        mean = m1s / m0s
+        denom = m2s / m1s - mean
+        denom = jnp.where(jnp.abs(denom) > 0, denom, eps)
+        k = jnp.clip(mean / denom, k_lo, k_hi)
+        theta = mean / k
+        n = jnp.where(valid, m0, 0.0)
+        return n, jnp.where(valid, theta, 1.0), jnp.where(valid, k, 1.0)
+    if fam == Family.LOGNORMAL:
+        valid = valid & (m2 > eps)
+        m0s = jnp.where(valid, m0, 1.0)
+        m1s = jnp.where(valid, m1, 1.0)
+        m2s = jnp.where(valid, m2, 2.0)
+        mu = jnp.log(m1s**2 / (m0s**1.5 * m2s**0.5))
+        sig2 = jnp.log(jnp.maximum(m0s * m2s / m1s**2, 1.0))
+        sigma = jnp.maximum(jnp.sqrt(sig2), eps)
+        n = m1s / special.exp(mu + 0.5 * sigma**2)
+        return (
+            jnp.where(valid, n, 0.0),
+            jnp.where(valid, mu, 1.0),
+            jnp.where(valid, sigma, 1.0),
+        )
+    raise NotImplementedError(fam)
+
+
 def _make_coal_body(
     data: CoalescenceData,
-    interpret: bool,
-    gammainc_iters: Optional[int],
-    quad_rule: str,
-    gauss_nodes: int,
-    thr_newton_iters: int,
-    thr_gammainc_iters: int,
-    f2_exact: Optional[bool],
+    gammainc_iters: Optional[int] = None,
+    quad_rule: str = "reference",
+    gauss_nodes: int = 24,
+    thr_newton_iters: int = 32,
+    thr_gammainc_iters: int = 128,
+    f2_exact: Optional[bool] = None,
     gammainc_gl_nodes: Optional[int] = None,
 ):
-    """Build the shared kernel physics: ``body(mom_rows, grid_refs) ->
-    (acc, params, mf)`` where `mom_rows` is the list of n_tot NORMALIZED
-    ``[1, TB]`` moment rows, `acc` the n_tot coalescence-tendency rows (None
-    = structurally zero), `params` the per-mode closure parameters and `mf`
+    """Build the shared physics: ``body(mom_rows, grid_refs) -> (acc,
+    params, mf)`` where `mom_rows` is the list of n_tot NORMALIZED ``[1, TB]``
+    moment rows, `acc` the n_tot coalescence-tendency rows (None =
+    structurally zero), `params` the per-mode closure parameters and `mf`
     the per-mode diagnostic moment rows. Returns ``(body, grid_inputs)``
-    with `grid_inputs` the static quadrature arrays the caller must pass as
-    extra kernel inputs."""
+    with `grid_inputs` the static ``[2, G]`` quadrature arrays (nodes,
+    weights) the caller passes back as `grid_refs`, each padded to a
+    power-of-two G with zero-weight copies of its last node (Triton tensor
+    sizes are powers of two)."""
     if not pallas_supported(data):
-        raise ValueError("configuration not supported by the Pallas kernel")
+        raise ValueError("configuration not supported by the fused body")
     spec = data.spec
     N, M = spec.n_modes, data.M
     n_tot = spec.n_tot
@@ -210,7 +241,7 @@ def _make_coal_body(
     # lognormal modes on the density-recentered window rule (the
     # proven-bound fast path, coalescence._msh_matrix_lognormal_window):
     # no static grid — one shared [2, G] base-node input, the per-column
-    # window built in-kernel from (μ, σ, T)
+    # window built per column from (μ, σ, T)
     ln_window = data.lognorm_gl_nodes
     window_modes = (
         [i for i in grid_modes if spec.families[i] == Family.LOGNORMAL]
@@ -219,13 +250,13 @@ def _make_coal_body(
     )
     grid_modes = [i for i in grid_modes if i not in window_modes]
 
-    # static quadrature inputs — passed as kernel INPUTS (Pallas forbids
-    # captured array constants).
+    # static quadrature inputs — passed back to `body` as arrays (a kernel
+    # takes them as inputs: Pallas forbids captured array constants).
     #
     # FixedThreshold: one [2, G] grid per grid mode; row 0 = x nodes, row 1 =
     #   weights (masked Simpson or GL).
     # MovingThreshold + gauss: ONE shared [2, gauss_nodes] input of GL base
-    #   nodes/weights on [-1, 1]; the per-column grid is built in-kernel.
+    #   nodes/weights on [-1, 1]; the per-column grid is built in the body.
     # MovingThreshold + reference: no input (iota-built masked Simpson grid
     #   of data.n_points_max points, matching distributions.threshold_log_grid).
     grids = {}
@@ -236,7 +267,7 @@ def _make_coal_body(
                 x_np, w_np, dx = _static_grid_gauss(data.thresholds[i], gauss_nodes)
             else:
                 x_np, w_np, dx = _static_grid(data.thresholds[i])
-            grids[i] = (x_np.shape[0], dx)
+            grids[i] = dx
             grid_inputs.append(np.stack([x_np, w_np]))
     elif quad_rule == "gauss" and grid_modes:
         u_np, wu_np = np.polynomial.legendre.leggauss(gauss_nodes)
@@ -246,14 +277,12 @@ def _make_coal_body(
         v_np, wv_np = np.polynomial.legendre.leggauss(ln_window)
         window_slot = len(grid_inputs)
         grid_inputs.append(np.stack([v_np, wv_np]))
+    grid_inputs = [_pad_pow2(g) for g in grid_inputs]
 
     # static per-mode percentile constants for the moving path
     if data.moving:
         percentiles = [float(p) for p in data.thresholds]
-        z_ndtri = [
-            float(np.asarray(special.ndtri(jnp.asarray(p, jnp.float64))))
-            for p in percentiles
-        ]
+        z_ndtri = [float(scipy.special.ndtri(p)) for p in percentiles]
 
     def body(mom_rows, grid_refs):
         dtype = mom_rows[0].dtype
@@ -299,7 +328,7 @@ def _make_coal_body(
                     thr = p1 * (-float(np.log1p(-p)))
                 elif fam == Family.GAMMA:
                     if gammainc_gl_nodes:
-                        # proven-bound fast inverse (VERDICT r3 #2): WH +
+                        # proven-bound fast inverse: WH +
                         # small-x start, 3 Halley iterations, shift-4 GL
                         # inner — < 2e-5 rel f64 / < 2e-4 f32 worst case
                         # over the reachable (k, p) domain
@@ -312,15 +341,12 @@ def _make_coal_body(
                             n_nodes=gammainc_gl_nodes,
                         )
                     else:
-                        # unroll only when lowering through Mosaic
-                        # (straight-line code); interpret mode keeps the
-                        # rolled loop — the float op sequence is identical
+                        # reference-parity inverse: a rolled Newton loop
                         thr = p1 * special.gammaincinv_impl(
                             p2,
                             jnp.full_like(p1, p),
                             n_newton=thr_newton_iters,
                             n_iters=thr_gammainc_iters,
-                            unroll=not interpret,
                         )
                 elif fam == Family.LOGNORMAL:
                     thr = special.exp(p1 + p2 * z_ndtri[i])
@@ -328,14 +354,14 @@ def _make_coal_body(
                     thr = p1
                 thr_rows[i] = jnp.maximum(thr, 1e-18)
 
-        # ---- in-kernel quadrature grid for moving thresholds --------------
+        # ---- per-column quadrature grid for moving thresholds -------------
         def _moving_grid(slot, T):
             """(x, w·mask, dx) from a per-column threshold row [1, TB];
             replicates distributions.threshold_log_grid +
             simpson_even_fast_weights_dynamic for the reference rule, or the
             GL log-interval rule for the fast path."""
             if quad_rule == "gauss":
-                G = gauss_nodes
+                G = grid_refs[slot].shape[1]
                 u = grid_refs[slot][0, :].reshape(G, 1)
                 wu = grid_refs[slot][1, :].reshape(G, 1)
                 x_lo = 1e-5 * jnp.minimum(T, 1.0)
@@ -344,7 +370,6 @@ def _make_coal_body(
                 w = 0.5 * (b - a) * wu
                 return x, w, 1.0, G
             G = data.n_points_max
-            # Mosaic's iota is integer-only; cast to the compute dtype after
             j = (
                 jax.lax.broadcasted_iota(jnp.int32, (G, 1), 0).astype(dtype)
                 + 1.0
@@ -457,8 +482,8 @@ def _make_coal_body(
 
         def _f2_lognormal(i, x, w, dx, T, n, mu, sig):
             """Lognormal F2 via exact Φ partial moments (mirrors
-            coalescence._msh_matrix_lognormal; erf through gammainc — lax.erf
-            has no Mosaic lowering)."""
+            coalescence._msh_matrix_lognormal; erf through gammainc, as
+            there)."""
             logx = jnp.log(jnp.maximum(x, tiny))
             fx = special.exp(-((logx - mu) ** 2) / (2.0 * sig**2)) / (
                 x * sig * float(np.sqrt(2.0 * np.pi))
@@ -502,7 +527,7 @@ def _make_coal_body(
             nodes)."""
             from cloudy_tpu.coalescence import LOGNORM_WINDOW_SIGMA
 
-            G = ln_window
+            G = grid_refs[window_slot].shape[1]
             vg = grid_refs[window_slot][0, :].reshape(G, 1)
             wg = grid_refs[window_slot][1, :].reshape(G, 1)
             W = LOGNORM_WINDOW_SIGMA
@@ -575,7 +600,7 @@ def _make_coal_body(
                 if data.moving:
                     x, w, dx, G = _moving_grid(0 if quad_rule == "gauss" else None, T)
                 else:
-                    G, dx = grids[i]
+                    G, dx = grid_refs[slot].shape[1], grids[i]
                     x = grid_refs[slot][0, :].reshape(G, 1)
                     w = grid_refs[slot][1, :].reshape(G, 1)
                     slot += 1
@@ -622,97 +647,13 @@ def _make_coal_body(
     return body, grid_inputs
 
 
-def _pallas_soa_call(kernel, n_in, n_out, block_cols, grid_inputs, interpret):
-    """Wrap `kernel(mom_ref, *grid_refs, out_ref)` as a SoA function
-    ``[n_in, B] -> [n_out, B]`` blocked over columns."""
-
-    def fn_soa(mom_t):
-        B = mom_t.shape[1]
-        if B % block_cols != 0:
-            raise ValueError(f"B={B} not a multiple of block_cols={block_cols}")
-        grid = (B // block_cols,)
-        in_specs = [
-            pl.BlockSpec(
-                (n_in, block_cols), lambda i: (0, i), memory_space=pltpu.VMEM
-            )
-        ]
-        grid_args = []
-        for g in grid_inputs:
-            shape = g.shape
-            in_specs.append(
-                pl.BlockSpec(shape, lambda i: (0, 0), memory_space=pltpu.VMEM)
-            )
-            grid_args.append(jnp.asarray(g, mom_t.dtype))
-        call = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((n_out, B), mom_t.dtype),
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec(
-                (n_out, block_cols), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-            interpret=interpret,
-        )
-        with _cache_bypass(interpret):
-            return call(mom_t, *grid_args)
-
-    return fn_soa
-
-
-def make_pallas_coal_fn(
-    data: CoalescenceData,
-    block_cols: int = 512,
-    interpret: bool = False,
-    gammainc_iters: Optional[int] = None,
-    quad_rule: str = "reference",
-    gauss_nodes: int = 24,
-    thr_newton_iters: int = 32,
-    thr_gammainc_iters: int = 128,
-    f2_exact: Optional[bool] = None,
-    gammainc_gl_nodes: Optional[int] = None,
-):
-    """Build ``fn(mom_norm [B, n_tot]) -> [B, n_tot]`` running the fused
-    kernel. ``B`` must be a multiple of `block_cols`. Use ``interpret=True``
-    for CPU testing. ``quad_rule``: "reference" keeps the reference's
-    log-grid Simpson rule (bit-identical to the XLA path); "gauss" uses
-    `gauss_nodes` Gauss–Legendre points on the same interval (~3x fewer
-    integrand evaluations at better accuracy — the fast path).
-    `thr_newton_iters`/`thr_gammainc_iters` control the MovingThreshold
-    gamma-percentile Newton inversion (defaults match
-    distributions.compute_thresholds for parity). ``f2_exact`` (default:
-    ``data.f2_exact``) switches gamma/exponential F2 matrices to the exact
-    factorization M_p·M_q·P(2k+p+q, T/θ) — one row-shaped incomplete gamma
-    per column instead of a quadrature grid (see
-    coalescence._msh_matrix_gamma_exact); lognormal keeps its quadrature."""
-    n_tot = data.spec.n_tot
-    body, grid_inputs = _make_coal_body(
-        data, interpret, gammainc_iters, quad_rule, gauss_nodes,
-        thr_newton_iters, thr_gammainc_iters, f2_exact,
-        gammainc_gl_nodes=gammainc_gl_nodes,
-    )
-
-    def kernel(mom_ref, *refs):
-        grid_refs = refs[:-1]
-        out_ref = refs[-1]
-        dtype = mom_ref.dtype
-        TB = mom_ref.shape[1]
-        mom_rows = [mom_ref[o, :].reshape(1, TB) for o in range(n_tot)]
-        acc, _, _ = body(mom_rows, grid_refs)
-        for o in range(n_tot):
-            out_ref[o, :] = (
-                acc[o][0, :] if acc[o] is not None else jnp.zeros((TB,), dtype)
-            )
-
-    fn_soa = _pallas_soa_call(
-        kernel, n_tot, n_tot, block_cols, grid_inputs, interpret
-    )
-
-    def fn(mom):
-        """[B, n_tot] -> [B, n_tot] (framework layout; transposes at entry)."""
-        return fn_soa(mom.T).T
-
-    fn.soa = fn_soa
-    return fn
+def _pad_pow2(g):
+    """``[2, G]`` (nodes, weights) → ``[2, 2^⌈log2 G⌉]``: extra columns
+    repeat the last node (finite integrand) with zero weight."""
+    extra = (1 << (g.shape[1] - 1).bit_length()) - g.shape[1]
+    g = np.pad(g, ((0, 0), (0, extra)), mode="edge")
+    g[1, g.shape[1] - extra:] = 0.0
+    return g
 
 
 def _sedi_flux_rows(spec, params, vel_n, dtype, fast_ratio: bool = False):
@@ -728,7 +669,7 @@ def _sedi_flux_rows(spec, params, vel_n, dtype, fast_ratio: bool = False):
     base's Lanczos-lgamma pair with `special.gamma_ratio` — 2 logs + 1 exp
     instead of ~23 transcendental-class ops, < 5e-7 relative
     (tests/test_special.py); it was the dominant unaccounted term of the
-    whole-step roofline (VERDICT r3 #1)."""
+    whole step's cost."""
     tiny = jnp.finfo(dtype).tiny
     out = [None] * spec.n_tot
     for i, fam in enumerate(spec.families):
@@ -768,292 +709,80 @@ def _sedi_flux_rows(spec, params, vel_n, dtype, fast_ratio: bool = False):
     return out
 
 
-def make_pallas_rainshaft_rhs_fn(
+def make_local_rhs(
     data: CoalescenceData,
     vel: Sequence[Tuple[float, float]],
     norms: Tuple[float, float],
-    block_cols: int = 512,
-    interpret: bool = False,
     **coal_kwargs,
 ):
-    """Fully fused per-level rainshaft RHS kernel.
+    """The level-local part of the rainshaft RHS on physical rows.
 
-    ``fn.soa(mom_phys [n_tot, B]) -> [2·n_tot, B]``: rows ``[0, n_tot)`` are
-    the PHYSICAL coalescence tendencies (negative clipping, normalization,
-    closure inversion, F2, Q/R/S, empty-cell mask and denormalization all
-    in-kernel — replicating `models.rainshaft.make_rainshaft_rhs`'s
-    per-level semantics, reference rainshaft_helpers.jl:53-77); rows
-    ``[n_tot, 2·n_tot)`` are the PHYSICAL sedimentation moment fluxes
-    ``−Σ_k c_k·M_{m+e_k}`` (reference Sedimentation.jl:22-37) for the
-    *physical* power-law velocity `vel` (normalization of the coefficients
-    happens here). The caller applies the upwind flux divergence — the only
-    part of the RHS that couples z-levels.
-
-    Fractional moments use the per-mode recurrence
-    ``M_{m+1+e} = M_{m+e}·θ·(k+m+e)`` off one lgamma-pair base (gamma), a
-    static Γ(1+e) base (exponential), or the direct closed form
-    (lognormal/monodisperse) — 0-2 lgammas + 1-3 exps per mode instead of
-    XLA's 2 lgamma + 1 exp per (mode × moment × level) with HBM round trips
-    between them.
-    """
+    Returns ``(local, grid_inputs)``: ``local(y_rows, grids, s_row) ->
+    (coal_rows, flux_rows)`` gives, per level, the PHYSICAL coalescence
+    tendency (negative clipping, normalization, closure, F2, Q/R/S,
+    empty-cell mask, denormalization — `models.rainshaft.make_rainshaft_rhs`'s
+    per-level semantics, reference rainshaft_helpers.jl:53-77), multiplied
+    by the optional per-lane row `s_row`, and the PHYSICAL sedimentation
+    moment fluxes ``−Σ_k c_k·M_{m+e_k}`` (reference Sedimentation.jl:22-37)
+    for the physical power-law velocity `vel`."""
     spec = data.spec
     n_tot = spec.n_tot
     mom_norms = [
         float(v) for v in get_moments_normalizing_factors(spec.nprogmoms, norms)
     ]
     vel_n = tuple((float(c) * norms[1] ** float(e), float(e)) for (c, e) in vel)
-
-    gl_nodes = coal_kwargs.pop("gammainc_gl_nodes", None)
+    gl_nodes = coal_kwargs.get("gammainc_gl_nodes")
     if gl_nodes is None:
         gl_nodes = data.gammainc_gl_nodes
-    body, grid_inputs = _make_coal_body(
-        data,
-        interpret,
-        coal_kwargs.pop("gammainc_iters", None),
-        coal_kwargs.pop("quad_rule", "reference"),
-        coal_kwargs.pop("gauss_nodes", 24),
-        coal_kwargs.pop("thr_newton_iters", 32),
-        coal_kwargs.pop("thr_gammainc_iters", 128),
-        coal_kwargs.pop("f2_exact", None),
-        gammainc_gl_nodes=gl_nodes,
-    )
-    if coal_kwargs:
-        raise TypeError(f"unknown kwargs: {sorted(coal_kwargs)}")
+    body, grid_inputs = _make_coal_body(data, **coal_kwargs)
 
-    def kernel(mom_ref, *refs):
-        grid_refs = refs[:-1]
-        out_ref = refs[-1]
-        dtype = mom_ref.dtype
+    def local(y_rows, grids, s_row=None):
+        dtype = y_rows[0].dtype
         eps = jnp.finfo(dtype).eps
-        tiny = jnp.finfo(dtype).tiny
-        TB = mom_ref.shape[1]
-
-        # clip negatives (rainshaft_helpers.jl:53), normalize, and build the
-        # empty-cell mask (:67-68) in one pass over the input rows
         mom_rows = []
         empty = None
         for o in range(n_tot):
-            r = jnp.maximum(mom_ref[o, :].reshape(1, TB), 0.0) * (
-                1.0 / mom_norms[o]
-            )
+            r = jnp.maximum(y_rows[o], 0.0) * (1.0 / mom_norms[o])
             mom_rows.append(r)
             lo = r < eps
             empty = lo if empty is None else (empty & lo)
-
-        acc, params, _ = body(mom_rows, grid_refs)
-
-        # coalescence rows: empty-cell mask, denormalize
-        for o in range(n_tot):
-            row = (
-                acc[o]
-                if acc[o] is not None
-                else jnp.zeros((1, TB), dtype)
-            )
-            row = jnp.where(empty, 0.0, row) * mom_norms[o]
-            out_ref[o, :] = row[0, :]
-
-        # sedimentation flux rows (normalized units, denormalized per row)
+        acc, params, _ = body(mom_rows, grids)
         flux_rows = _sedi_flux_rows(
             spec, params, vel_n, dtype, fast_ratio=bool(gl_nodes)
         )
+        coal, flux = [], []
         for o in range(n_tot):
-            out_ref[n_tot + o, :] = (flux_rows[o] * mom_norms[o])[0, :]
+            c = acc[o] if acc[o] is not None else jnp.zeros_like(y_rows[o])
+            c = jnp.where(empty, 0.0, c) * mom_norms[o]
+            coal.append(c if s_row is None else c * s_row)
+            flux.append(flux_rows[o] * mom_norms[o])
+        return coal, flux
 
-    fn_soa = _pallas_soa_call(
-        kernel, n_tot, 2 * n_tot, block_cols, grid_inputs, interpret
-    )
-
-    def fn(mom):
-        """[B, n_tot] physical -> ([B, n_tot] coal, [B, n_tot] flux)."""
-        out = fn_soa(mom.T)
-        return out[:n_tot].T, out[n_tot:].T
-
-    fn.soa = fn_soa
-    fn.n_tot = n_tot
-    return fn
+    return local, grid_inputs
 
 
-def make_pallas_rainshaft_step_fn(
-    data: CoalescenceData,
-    vel: Sequence[Tuple[float, float]],
-    norms: Tuple[float, float],
-    nz: int,
-    dz: float,
-    dt: float,
-    block_cols: int = 4096,
-    interpret: bool = False,
-    kernel_scale: bool = False,
-    **coal_kwargs,
-):
-    """ONE Pallas kernel per block = a FULL SSPRK33 rainshaft step.
+def ssprk33_rows(y, local, upstream, dt: float, inv_dz: float):
+    """One SSPRK33 step of the rainshaft on rows (reference
+    rainshaft_helpers.jl:45-89 with the Shu–Osher stages of
+    `stepper.ssprk33_step`).
 
-    The maximal fusion: three RHS evaluations (closure → coalescence → empty
-    mask → sedimentation flux), the upwind flux divergence AND the RK
-    combinations all execute in VMEM; HBM traffic is exactly one read and
-    one write of the state per step — vs the per-stage kernel-launch +
-    coal/flux write + stencil/AXPY reads of the `make_pallas_rainshaft_rhs_fn`
-    route (measured: the unfused stencil + RK AXPYs are ~23% of the step,
-    PROFILE.json).
+    `local(rows) -> (coal_rows, flux_rows)` is the level-local RHS and
+    ``upstream[stage]`` holds the flux rows of the level ABOVE (zero above
+    the column top) for RK stage 0, 1 or 2: the upwind divergence
+    ``−(F[i+1] − F[i])/dz`` is the only term that couples levels. Returns
+    ``(y_next_rows, (F(y), F(u1), F(u2)))`` so a level loop can carry the
+    three stage fluxes to the level below."""
+    n = len(y)
 
-    The z-stencil stays INSIDE the block: `block_cols` must be a multiple of
-    `nz` so every block holds whole columns (flat SoA layout, z contiguous);
-    level i's upstream flux F[i+1] is then a one-lane roll within the block
-    (`pltpu.roll`; plain `jnp.roll` in interpret mode), zeroed at each
-    column's top level by a periodic iota mask — the same semantics as
-    `models.rainshaft.make_rainshaft_rhs_fused` applies in XLA (reference
-    rainshaft_helpers.jl:80-86).
+    def rhs(stage, rows):
+        coal, flux = local(rows)
+        up = upstream[stage]
+        return [coal[o] - (up[o] - flux[o]) * inv_dz for o in range(n)], flux
 
-    ``fn(mom_phys [n_tot, B]) -> [n_tot, B]``: the state advanced by one
-    SSPRK33 step of length `dt`. Parity with the XLA-orchestrated step is
-    pinned in tests/test_pallas.py.
-
-    ``kernel_scale=True`` adds a second operand: ``fn(mom, scale [1, B])``
-    multiplies the coalescence tendency by the per-lane `scale` row inside
-    every RHS evaluation. Because the Q/R/S assembly is LINEAR in the
-    kernel tensor (the F2/msh matrices are kernel-independent partial
-    moments), ``scale = s`` is exactly equivalent to building `data` from
-    the kernel tensor scaled by ``s`` — pinned in tests/test_pallas.py.
-    This is the calibration hook: an EKI ensemble rides the lanes with a
-    per-member kernel scaling, driving the PRODUCTION kernel as the
-    forward model (VERDICT r4 #5) instead of a separate XLA path.
-    """
-    spec = data.spec
-    n_tot = spec.n_tot
-    if block_cols % nz != 0:
-        raise ValueError(f"block_cols={block_cols} must be a multiple of nz={nz}")
-    mom_norms = [
-        float(v) for v in get_moments_normalizing_factors(spec.nprogmoms, norms)
-    ]
-    vel_n = tuple((float(c) * norms[1] ** float(e), float(e)) for (c, e) in vel)
-    inv_dz = 1.0 / float(dz)
-    dt = float(dt)
-
-    gl_nodes = coal_kwargs.pop("gammainc_gl_nodes", None)
-    if gl_nodes is None:
-        gl_nodes = data.gammainc_gl_nodes
-    body, grid_inputs = _make_coal_body(
-        data,
-        interpret,
-        coal_kwargs.pop("gammainc_iters", None),
-        coal_kwargs.pop("quad_rule", "reference"),
-        coal_kwargs.pop("gauss_nodes", 24),
-        coal_kwargs.pop("thr_newton_iters", 32),
-        coal_kwargs.pop("thr_gammainc_iters", 128),
-        coal_kwargs.pop("f2_exact", None),
-        gammainc_gl_nodes=gl_nodes,
-    )
-    if coal_kwargs:
-        raise TypeError(f"unknown kwargs: {sorted(coal_kwargs)}")
-
-    def kernel(mom_ref, *refs):
-        if kernel_scale:
-            scale_ref, grid_refs = refs[0], refs[1:-1]
-        else:
-            scale_ref, grid_refs = None, refs[:-1]
-        out_ref = refs[-1]
-        dtype = mom_ref.dtype
-        eps = jnp.finfo(dtype).eps
-        TB = mom_ref.shape[1]
-        s_row = (
-            scale_ref[0, :].reshape(1, TB) if scale_ref is not None else None
-        )
-
-        # top-of-column lane mask (z contiguous within the block); explicit
-        # int32 rem — under jax_enable_x64 the Python-int `%` promotes
-        # through an int64 convert_element_type that Mosaic's lowering
-        # cannot handle (infinite recursion in its convert helper)
-        j = jax.lax.broadcasted_iota(jnp.int32, (1, TB), 1)
-        top = jax.lax.rem(j, jnp.int32(nz)) == jnp.int32(nz - 1)
-
-        def shift_up(row):
-            # roll left by 1 ≡ roll right by TB − 1 (pltpu.roll requires a
-            # non-negative shift); int32 explicitly — under jax_enable_x64
-            # the Python int becomes an i64 operand tpu.dynamic_rotate
-            # rejects
-            rolled = (
-                jnp.roll(row, -1, axis=1)
-                if interpret
-                else pltpu.roll(row, jnp.int32(TB - 1), axis=1)
-            )
-            return jnp.where(top, 0.0, rolled)
-
-        def rhs(y_rows):
-            mom_rows = []
-            empty = None
-            for o in range(n_tot):
-                r = jnp.maximum(y_rows[o], 0.0) * (1.0 / mom_norms[o])
-                mom_rows.append(r)
-                lo = r < eps
-                empty = lo if empty is None else (empty & lo)
-            acc, params, _ = body(mom_rows, grid_refs)
-            flux_rows = _sedi_flux_rows(
-                spec, params, vel_n, dtype, fast_ratio=bool(gl_nodes)
-            )
-            rows = []
-            for o in range(n_tot):
-                coal = (
-                    acc[o] if acc[o] is not None else jnp.zeros((1, TB), dtype)
-                )
-                coal = jnp.where(empty, 0.0, coal) * mom_norms[o]
-                if s_row is not None:
-                    coal = coal * s_row
-                f = flux_rows[o] * mom_norms[o]
-                rows.append(coal - (shift_up(f) - f) * inv_dz)
-            return rows
-
-        y = [mom_ref[o, :].reshape(1, TB) for o in range(n_tot)]
-        f0 = rhs(y)
-        u1 = [y[o] + dt * f0[o] for o in range(n_tot)]
-        f1 = rhs(u1)
-        u2 = [
-            0.75 * y[o] + 0.25 * (u1[o] + dt * f1[o]) for o in range(n_tot)
-        ]
-        f2 = rhs(u2)
-        for o in range(n_tot):
-            out_ref[o, :] = (
-                y[o] / 3.0 + (2.0 / 3.0) * (u2[o] + dt * f2[o])
-            )[0, :]
-
-    if not kernel_scale:
-        return _pallas_soa_call(
-            kernel, n_tot, n_tot, block_cols, grid_inputs, interpret
-        )
-
-    def fn_scaled(mom_t, scale):
-        B = mom_t.shape[1]
-        if B % block_cols != 0:
-            raise ValueError(f"B={B} not a multiple of block_cols={block_cols}")
-        scale = jnp.broadcast_to(
-            jnp.asarray(scale, mom_t.dtype).reshape(1, -1), (1, B)
-        )
-        grid = (B // block_cols,)
-        in_specs = [
-            pl.BlockSpec(
-                (n_tot, block_cols), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, block_cols), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-        ]
-        grid_args = []
-        for g in grid_inputs:
-            in_specs.append(
-                pl.BlockSpec(
-                    g.shape, lambda i: (0, 0), memory_space=pltpu.VMEM
-                )
-            )
-            grid_args.append(jnp.asarray(g, mom_t.dtype))
-        call = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((n_tot, B), mom_t.dtype),
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec(
-                (n_tot, block_cols), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-            interpret=interpret,
-        )
-        with _cache_bypass(interpret):
-            return call(mom_t, scale, *grid_args)
-
-    return fn_scaled
+    f0, fl0 = rhs(0, y)
+    u1 = [y[o] + dt * f0[o] for o in range(n)]
+    f1, fl1 = rhs(1, u1)
+    u2 = [0.75 * y[o] + 0.25 * (u1[o] + dt * f1[o]) for o in range(n)]
+    f2, fl2 = rhs(2, u2)
+    out = [y[o] / 3.0 + (2.0 / 3.0) * (u2[o] + dt * f2[o]) for o in range(n)]
+    return out, (fl0, fl1, fl2)

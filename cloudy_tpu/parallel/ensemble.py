@@ -16,7 +16,7 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def shard_columns(
@@ -34,7 +34,7 @@ def shard_columns(
         mesh=mesh,
         in_specs=(spec,),
         out_specs=spec,
-        check_rep=False,
+        check_vma=False,
     )
     def sharded(y):
         return step_fn(y)
@@ -42,53 +42,19 @@ def shard_columns(
     return sharded
 
 
-def ensemble_rainshaft_step_soa(
-    rhs: Callable,
-    dt: float,
-    mesh: Mesh,
-    axis_name: str = "columns",
-    method: str = "ssprk33",
-):
-    """One sharded time step for a column ensemble in the Pallas kernel's
-    native FLAT structure-of-arrays layout ``[n_tot, n_columns·nz]`` (z
-    contiguous within each column — see
-    `models.rainshaft.make_rainshaft_rhs_fused`). Sharding the flat axis
-    splits on whole-column boundaries as long as each shard's size is a
-    multiple of nz (z never crosses devices, so the upwind stencil stays
-    local). Zero collectives — identical scaling structure to
-    `ensemble_rainshaft_step`, minus every per-stage layout transpose."""
-    from cloudy_tpu import stepper as _st
-
-    step = _st.STEPPERS[method]
-    pspec = P(None, axis_name)
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(pspec,),
-        out_specs=pspec,
-        check_rep=False,
-    )
-    def sharded(y):
-        return step(rhs, y, jnp.asarray(0.0, y.dtype), dt)
-
-    return sharded
-
-
 def ensemble_whole_step(step_fn: Callable, mesh: Mesh, axis_name: str = "columns"):
-    """Shard the single-kernel whole-step function (the maximally fused
-    `ops.pallas_coalescence.make_pallas_rainshaft_step_fn`, flat SoA
-    ``[n_tot, n_columns·nz]``) over the column axis. Each shard must be a
-    whole number of columns AND a multiple of the kernel's block_cols; the
-    step contains zero collectives."""
-    pspec = P(None, axis_name)
+    """Shard a whole-step function over the level-major state
+    ``[n_tot, nz, n_columns]`` (`ops.triton_coalescence.make_triton_rainshaft_step_fn`)
+    along its column axis. Levels never cross devices, so the upwind stencil
+    stays local and the step contains zero collectives."""
+    pspec = P(None, None, axis_name)
 
     @functools.partial(
         shard_map,
         mesh=mesh,
         in_specs=(pspec,),
         out_specs=pspec,
-        check_rep=False,
+        check_vma=False,
     )
     def sharded(y):
         return step_fn(y)
@@ -138,7 +104,7 @@ def ensemble_rainshaft_step(
         mesh=mesh,
         in_specs=(pspec,),
         out_specs=(pspec, P()),
-        check_rep=False,
+        check_vma=False,
     )
     def sharded(y):
         y_next = local_step(y)

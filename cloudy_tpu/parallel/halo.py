@@ -9,7 +9,7 @@ exactly one cell of flux halo from the shard above.
 
 Overlap structure: the halo `ppermute` is issued on the *flux* (cheap,
 computed first) before the expensive coalescence bilinear form; XLA's
-latency-hiding scheduler overlaps the ICI transfer with that compute because
+latency-hiding scheduler overlaps the transfer with that compute because
 nothing in the coalescence path depends on the received halo.
 """
 
@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from cloudy_tpu.spec import SpectrumSpec, get_moments_normalizing_factors
 from cloudy_tpu import distributions as pdists
@@ -35,7 +35,7 @@ def halo_from_above(x_block, axis_name: str, fill=0.0):
     z blocks are ordered bottom → top along the mesh axis; shard d receives
     ``x_block[..., 0:1, :]`` from shard d+1; the topmost shard receives
     `fill` (zero-influx boundary). Single-element `ppermute` — one hop on the
-    ICI ring."""
+    device ring."""
     n = jax.lax.axis_size(axis_name)
     perm = [(d, d - 1) for d in range(1, n)]
     bottom = x_block[..., :1, :]
@@ -76,7 +76,7 @@ def make_z_sharded_rainshaft_rhs(
         flux = get_sedimentation_flux(spec, params, vel_n) * norm
         flux_above = halo_from_above(flux, axis_name)  # [..., 1, n_tot]
 
-        # … then the expensive part (overlaps with the ICI transfer)
+        # … then the expensive part (overlaps with the halo transfer)
         if coal_data is not None:
             coal = get_coal_ints(coal_data, params) * norm
             empty = jnp.all(mom_n < eps, axis=-1, keepdims=True)
@@ -111,7 +111,7 @@ def z_sharded_step(
         mesh=mesh,
         in_specs=(spec_inout,),
         out_specs=spec_inout,
-        check_rep=False,
+        check_vma=False,
     )
     def sharded(y):
         return step(rhs, y, jnp.asarray(0.0, y.dtype), dt)

@@ -1,11 +1,12 @@
 """Device mesh construction and multi-host initialization.
 
-TPU-native scaling design (SURVEY.md §5/§7): columns are embarrassingly
-parallel (the only inter-column coupling in the physics is zero), so the
-primary mesh axis shards the column ensemble; an optional second axis shards
-the vertical (z) dimension with a one-cell halo for the sedimentation flux
-(cloudy_tpu/parallel/halo.py). Collectives ride ICI within a host / pod
-slice; cross-host traffic is limited to diagnostics reductions (psum of
+Scaling design (SURVEY.md §5/§7): columns are embarrassingly parallel (the
+only inter-column coupling in the physics is zero), so the primary mesh axis
+shards the column ensemble; an optional second axis shards the vertical (z)
+dimension with a one-cell halo for the sedimentation flux
+(cloudy_tpu/parallel/halo.py). The mesh is a plain device list: the cards of
+one host are joined all to all, so its shape follows the algorithm alone.
+Cross-device traffic is limited to diagnostics reductions (psum of
 conservation sums).
 """
 
@@ -22,13 +23,11 @@ from jax.sharding import Mesh
 logger = logging.getLogger(__name__)
 
 #: environment variables whose presence means "this run is part of a cluster"
-#: (jax cluster autodetection inputs: explicit coordinator, TPU pod metadata,
-#: SLURM/OpenMPI launchers).
+#: (jax cluster autodetection inputs: explicit coordinator, SLURM/OpenMPI
+#: launchers).
 _CLUSTER_ENV_VARS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    "MEGASCALE_COORDINATOR_ADDRESS",
-    "TPU_WORKER_HOSTNAMES",
     "SLURM_JOB_NUM_NODES",
     "OMPI_MCA_orte_hnp_uri",
 )
@@ -46,8 +45,8 @@ def initialize_distributed(
     local_device_ids: Optional[Sequence[int]] = None,
 ) -> bool:
     """Multi-host bring-up: `jax.distributed.initialize` with arguments
-    resolved from the environment when omitted (TPU pod metadata / SLURM /
-    OpenMPI autodetection). Returns True when a multi-process cluster was
+    resolved from the environment when omitted (SLURM / OpenMPI
+    autodetection). Returns True when a multi-process cluster was
     initialized (exercised by tests/test_distributed.py with a 2-process CPU
     cluster and a local TCP coordinator).
 

@@ -1,6 +1,6 @@
 """Static spectrum specification and moment-vector indexing.
 
-TPU-native replacement of the reference's moment-vector helpers
+Array-native replacement of the reference's moment-vector helpers
 (src/helper_functions.jl:13-58): maps (mode i, moment m) <-> flat index in the
 concatenated moment vector, and provides per-moment normalization factors
 (src/helper_functions.jl:40-53).

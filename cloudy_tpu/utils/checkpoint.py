@@ -1,9 +1,9 @@
 """Checkpoint/resume for long scan runs.
 
 The reference has no checkpointing (output-only NetCDF writers, SURVEY.md §5)
-— this is new capability for pod-scale jobs: orbax-backed when available,
-npz fallback, plus a checkpointed segment-scan driver that survives restarts
-at segment granularity.
+— this is new capability for pod-scale jobs: npz checkpoints (exact
+round-trip, no serializer dependency) plus a checkpointed segment-scan
+driver that survives restarts at segment granularity.
 """
 
 from __future__ import annotations
@@ -15,23 +15,9 @@ import numpy as np
 import jax
 
 
-def save_checkpoint(path: str, state, step: int, use_orbax: bool = True) -> None:
-    """Persist (state pytree, step). Orbax if available, else npz."""
-    if use_orbax:
-        try:
-            import orbax.checkpoint as ocp
-
-            ckptr = ocp.StandardCheckpointer()
-            ckptr.save(
-                os.path.abspath(f"{path}_step{step}"),
-                {"state": jax.device_get(state), "step": np.int64(step)},
-                force=True,
-            )
-            ckptr.wait_until_finished()
-            return
-        except Exception:
-            pass
-    flat, treedef = jax.tree_util.tree_flatten(state)
+def save_checkpoint(path: str, state, step: int) -> None:
+    """Persist (state pytree, step) as ``{path}_step{step}.npz``."""
+    flat, _ = jax.tree_util.tree_flatten(state)
     np.savez(
         f"{path}_step{step}.npz",
         step=np.int64(step),
@@ -42,14 +28,7 @@ def save_checkpoint(path: str, state, step: int, use_orbax: bool = True) -> None
 
 def load_checkpoint(path: str, step: int, like=None):
     """Restore a checkpoint written by `save_checkpoint`. `like` provides the
-    pytree structure for the npz fallback."""
-    orbax_path = os.path.abspath(f"{path}_step{step}")
-    if os.path.isdir(orbax_path):
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        out = ckptr.restore(orbax_path)
-        return out["state"], int(out["step"])
+    pytree structure."""
     data = np.load(f"{path}_step{step}.npz")
     flat = [data[f"leaf{i}"] for i in range(int(data["n_leaves"]))]
     treedef = jax.tree_util.tree_structure(like)

@@ -3,8 +3,7 @@
 The reference's only performance tooling is CI-enforced BenchmarkTools
 budgets (SURVEY.md §5/§6); here observability is first-class: wall-clock step
 timers with device sync, physics invariant monitors (mass conservation,
-positivity), `jax.profiler` trace capture, and a roofline estimate for the
-coalescence kernel.
+positivity) and `jax.profiler` trace capture.
 """
 
 from __future__ import annotations
@@ -75,61 +74,6 @@ def profile_trace(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
-
-
-def coalescence_roofline(
-    n_columns: int,
-    n_modes: int,
-    M: int,
-    n_grid: int = 0,
-    gammainc_iters: int = 12,
-    dtype_bytes: int = 4,
-    vpu_flops: float = 3.9e12,  # v5e VPU: ~940 MHz x (8,128) vreg x 4 ALUs
-    hbm_bw: float = 8.1e11,  # TPU v5e bytes/s
-    transcendental_slots: float = 8.0,
-) -> Dict[str, float]:
-    """Speed-of-light estimate for the fused coalescence step.
-
-    The fused kernel is pure element-wise VPU work (the Q/R/S contraction is
-    unrolled sparse FMAs on lane rows — no matmuls), so the compute ceiling
-    is the VPU, not the MXU. Cost per column with the exact-F2 path
-    (``n_grid = 0``): one gammainc chain (~3·iters transcendental-class ops
-    + ~8·iters ALU) + closure inversion + moment recurrence + the bilinear
-    form (~2·D² FMA upper bound). With a quadrature grid (``n_grid > 0``)
-    the gammainc chain runs per grid point. Transcendental-class ops
-    (exp/log/div) are weighted `transcendental_slots`.
-
-    MEASURED against this model on the v5e (ROOFLINE.json, round 2): the
-    bench configuration runs at ~0.9 of the slot-weighted VPU ceiling and
-    ~0.2 of HBM — compute-bound, near speed of light. See tools/roofline.py
-    for the per-term op model and docs/performance.md for the numbers.
-    """
-    D = n_modes * M
-    n_out = 3 * n_modes  # upper bound
-    reps = max(n_grid, 1) * max(n_modes - 1, 1)
-    trans = reps * (3.0 * gammainc_iters + 15.0) + 10.0 * n_modes
-    alu = (
-        reps * (8.0 * gammainc_iters + 25.0)
-        + 2.0 * D * D
-        + 2.0 * n_out * D
-        + 20.0 * n_modes
-    )
-    flops = n_columns * (alu + trans)
-    slots = n_columns * (alu + transcendental_slots * trans)
-    bytes_ = n_columns * (2 * n_out) * dtype_bytes
-    ai = flops / bytes_
-    t_compute = slots / vpu_flops
-    t_mem = bytes_ / hbm_bw
-    return {
-        "flops": flops,
-        "slot_weighted_ops": slots,
-        "bytes": bytes_,
-        "arithmetic_intensity": ai,
-        "t_compute_s": t_compute,
-        "t_memory_s": t_mem,
-        "bound": "compute" if t_compute > t_mem else "memory",
-        "speed_of_light_s": max(t_compute, t_mem),
-    }
 
 
 class JsonlLogger:

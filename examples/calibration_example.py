@@ -15,7 +15,7 @@ import jax
 
 # calibration is a CPU-side workflow here; f64 keeps the EKI covariance
 # solves well-conditioned for the badly-scaled initial misfits (the
-# on-chip f32 calibration path is benched separately in
+# f32 device calibration path is timed separately in
 # tools/calibration_bench.py with log-space observables)
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp

@@ -5,7 +5,7 @@
 // Q/R/S assembly, for spectra of gamma/exponential modes with fixed
 // thresholds (the flagship configuration). Used
 //   (a) as an independent cross-validation oracle in tests, and
-//   (b) as the single-CPU-core baseline bench.py compares the TPU against
+//   (b) as the single-CPU-core baseline bench.py compares the GPU against
 //       (the reference publishes no throughput numbers — BASELINE.md).
 //
 // Mirrors reference semantics: closure inversion

@@ -61,7 +61,7 @@ def _harness_case(name):
 def _case_rainshaft_128_thinned():
     """BASELINE configs[3] at full size (nz = 128, 300 s), thinned to every
     30th step — the flagship-scale scenario, golden-pinned end to end
-    (VERDICT r1 #6). Identical construction to harness.rainshaft_128."""
+    Identical construction to harness.rainshaft_128."""
     from cloudy_tpu import harness
 
     ts, ys = harness.SCENARIOS["rainshaft_128"]()["run"]()

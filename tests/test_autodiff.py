@@ -1,5 +1,5 @@
 """End-to-end differentiability — a capability the Julia reference does NOT
-have (VERDICT r2 #8 stretch goal; the CliMA calibration use-case drives
+have (the CliMA calibration use-case drives
 Cloudy.jl through EnsembleKalmanProcesses precisely because it lacks
 gradients).
 

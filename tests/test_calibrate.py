@@ -45,7 +45,7 @@ def _box_forward():
     def forward(log_s):
         # observe LOG-moments: they span ~9 decades over the prior's s-range,
         # and log space keeps the EKI covariance solve well-conditioned
-        # (f32-safe on TPU — examples/calibration_example.py runs this in f32)
+        # (f32-safe — examples/calibration_example.py runs this in f32)
         s = jnp.exp(log_s[0] if log_s.ndim else log_s)
 
         def rhs(m, t):
@@ -286,7 +286,7 @@ def test_fit_gradient_recovers_kernel_scale():
 
 
 def test_sparse_eki_recovers_kernel_tensor_of_real_model():
-    """THE motivating use-case (calibrate.py:176-179 / VERDICT r3 #5):
+    """THE motivating use-case (calibrate.py:176-179):
     sparse EKI over ALL kernel-tensor coefficients of the actual
     coalescence model via `make_kernel_diff_coal_fn`, from noisy box
     trajectories generated by a pure Golovin (linear) kernel — where only
@@ -343,11 +343,11 @@ def test_sparse_eki_recovers_kernel_tensor_of_real_model():
 
 
 def test_eki_through_production_whole_step_kernel():
-    """VERDICT r4 #5 wiring smoke: EKI whose per-member forward runs the
-    PRODUCTION whole-step Pallas rainshaft kernel (interpret mode, tiny
-    shapes) with the per-member kernel_scale operand. Pins that run_eki's
-    vmap folds members through the Pallas call, the loop jits, misfit
-    decreases, and the recovered scale moves toward the truth."""
+    """Wiring smoke: EKI whose per-member forward runs the PRODUCTION
+    whole rainshaft step (tiny shapes) with the per-member kernel_scale
+    operand. Pins that run_eki's vmap batches members through the step,
+    the loop jits, misfit decreases, and the recovered scale moves toward
+    the truth."""
     import sys, os
 
     sys.path.insert(
@@ -357,7 +357,7 @@ def test_eki_through_production_whole_step_kernel():
     from cloudy_tpu import calibrate
 
     forward, th_true = make_pod_forward(
-        J_cols=2, nz=8, n_steps=4, block_cols=16, interpret=True
+        J_cols=2, nz=8, n_steps=4, interpret=True
     )
     y = forward(th_true)
     assert bool(jnp.all(jnp.isfinite(y)))

@@ -402,8 +402,8 @@ def test_coal_ints_exact_matches_quadrature_path():
 
 def test_lognormal_window_rule_proven_bound():
     """The density-recentered GL window rule for lognormal F2
-    (coalescence._msh_matrix_lognormal_window, the proven-bound fast path —
-    VERDICT r3 #6) against adaptive scipy quadrature of the same integral:
+    (coalescence._msh_matrix_lognormal_window, the proven-bound fast path)
+    against adaptive scipy quadrature of the same integral:
     worst-case error < 1e-3 of the clamp scale M_p·M_q over the reachable
     (μ, σ, T) domain at 16 nodes (measured 4.0e-4 over a 200-case sweep;
     this test pins a fixed 60-case subgrid). The reference-shaped log grid

@@ -8,10 +8,10 @@ allclose" contract, pinned four ways.
    plain numpy reproduces the stored trajectories — the analogue of the
    reference's independent dense Q/R/S reimplementation
    (test_Sources_correctness.jl:87-169), lifted to full trajectories.
-3. f32 stays allclose to f64 over the full run (the TPU production dtype).
-4. The Pallas fast path (Gauss-Legendre quadrature rule, interpret mode)
-   stays allclose over the full run — the same kernel bench.py compiles via
-   Mosaic on the chip.
+3. f32 stays allclose to f64 over the full run (the production dtype).
+4. The fused row body's fast path (Gauss-Legendre quadrature rule)
+   stays allclose over the full run — the same kernel bench.py times on
+   the GPU, here in the Pallas interpreter.
 """
 
 import shutil
@@ -101,10 +101,9 @@ def test_f32_trajectory_allclose(name):
 
 
 def _bench_config():
-    """The exact fast-path configuration bench.py runs on-chip, imported from
+    """The exact fast-path configuration bench.py runs on the GPU, imported from
     bench.py itself so the gated configuration cannot drift from the benched
-    one (VERDICT r1 #1 / ADVICE r1: the headline number must be measured at a
-    tested accuracy point)."""
+    one (the headline number must be measured at a tested accuracy point)."""
     import importlib.util
     import os
 
@@ -127,12 +126,13 @@ def _bench_config():
      "bench"],
 )
 def test_pallas_gauss_trajectory_allclose(cfg):
-    """Full trajectory through the fused Pallas kernel (interpret mode)
+    """Full trajectory through the RHS-only Triton kernel (Pallas
+    interpreter)
     stays within 1e-3 of the stored reference-parity trajectory — at the
     high-accuracy Gauss-16 point, at the Gauss-12 quadrature fallback, AND
-    at the exact configuration bench.py measures on-chip (imported from
+    at the exact configuration bench.py measures on the GPU (imported from
     bench.py itself so the gated configuration cannot drift)."""
-    from cloudy_tpu.ops import pallas_coalescence as pc
+    from cloudy_tpu.ops import triton_coalescence as tc
 
     sc = harness.SCENARIOS["box_exp_gamma_mixture"]()
     data, config, spec = sc["data"], sc["config"], sc["spec"]
@@ -145,7 +145,7 @@ def test_pallas_gauss_trajectory_allclose(cfg):
         kw = dict(_bench_config(), f2_exact=False)
     else:
         kw = dict(gauss_nodes=16, gammainc_iters=None, f2_exact=False)
-    fn = pc.make_pallas_coal_fn(
+    fn = tc.make_triton_coal_fn(
         data, block_cols=8, interpret=True, quad_rule="gauss", **kw
     )
 
@@ -169,15 +169,15 @@ def test_rainshaft_128_pallas_coal_fn_trajectory_allclose():
     """Flagship-scale BASELINE configs[3] (nz = 128, 300 s) through the fused
     Pallas coalescence hook (`make_rainshaft_rhs(coal_fn=...)`, the pod
     workload's production path) stays within 1e-3 of the stored f64
-    reference-parity trajectory (VERDICT r1 #6)."""
+    reference-parity trajectory."""
     import jax
 
     from cloudy_tpu.models import rainshaft as rs
-    from cloudy_tpu.ops import pallas_coalescence as pc
+    from cloudy_tpu.ops import triton_coalescence as tc
 
     sc = harness.SCENARIOS["rainshaft_128"]()
     data, config = sc["data"], sc["config"]
-    coal = pc.make_pallas_coal_fn(
+    coal = tc.make_triton_coal_fn(
         data, block_cols=128, interpret=True, quad_rule="gauss",
         **_bench_config(),
     )
@@ -194,7 +194,7 @@ def test_rainshaft_128_pallas_coal_fn_trajectory_allclose():
 @pytest.mark.slow
 def test_f32_longhorizon_drift_bound():
     """Long-horizon f32 production-path validation at reference duration
-    (VERDICT r3 #3; the reference's flagship integrates to t = 1000 s,
+    (the reference's flagship integrates to t = 1000 s,
     rainshaft_single_gamma.jl:30): the f32 fast-tier rainshaft (exact-F2 +
     GL-12 — the same physics the whole-step Pallas kernel executes, whose
     equality with this XLA path is pinned by the parity tests) is
@@ -254,9 +254,8 @@ def test_f32_longhorizon_drift_bound():
 
 @pytest.mark.slow
 def test_f32_longhorizon_drift_bound_nz128():
-    """VERDICT r4 #4: the FLAGSHIP-DEPTH (nz = 128) long horizon, whose
-    scaled error was the one still growing at t = 1000 in the round-4
-    record (1.21e-3 on-chip, runs.jsonl), gets its own gate.
+    """The FLAGSHIP-DEPTH (nz = 128) long horizon, whose scaled error is
+    the one still growing at t = 1000, gets its own gate.
 
     Mechanism (measured, 10-checkpoint per-level error profiles — see
     docs/performance.md "Long-horizon f32 drift"): the worst scaled error

@@ -45,11 +45,12 @@ def test_scenario_registry_complete():
 
 
 def test_pod_ensemble_scenario_smoke_with_diagnostics(tmp_path):
-    """The pod scenario at toy scale on CPU: on-device fori_loop chain,
+    """The pod scenario at toy scale on CPU (the production kernel in the
+    Pallas interpreter): on-device fori_loop chain,
     conservation report, and the mean-profile diagnostics NetCDF (the
     pod-scale observability output — the full state is GBs on the real
     workload, the per-level ensemble mean is what a pod job monitors)."""
-    sc = harness._scenario_pod_ensemble(n_columns=8)
+    sc = harness._scenario_pod_ensemble(n_columns=8, interpret=True)
     # run through run_scenario for the full output path
     import cloudy_tpu.harness as H
 
@@ -68,14 +69,16 @@ def test_pod_ensemble_scenario_smoke_with_diagnostics(tmp_path):
 
 @pytest.mark.parametrize("variant", ["moving", "lognorm"])
 def test_pod_ensemble_variant_scenarios_smoke(variant):
-    """VERDICT r4 #2: the MovingThreshold and lognormal production variants
+    """The MovingThreshold and lognormal production variants
     get the same pod treatment as the flagship — toy-scale CPU smoke of the
     registered scenarios' chains + conservation."""
     import jax.numpy as jnp
 
     from cloudy_tpu.utils import metrics
 
-    sc = harness._scenario_pod_ensemble(n_columns=8, variant=variant)
+    sc = harness._scenario_pod_ensemble(
+        n_columns=8, variant=variant, interpret=True
+    )
     ts, ys = sc["run"]()
     assert bool(jnp.all(jnp.isfinite(ys[-1])))
     rep = metrics.conservation_report(sc["spec"], ys[-1])
@@ -84,7 +87,7 @@ def test_pod_ensemble_variant_scenarios_smoke(variant):
 
 @pytest.mark.parametrize("variant", ["fixed2gamma", "moving"])
 def test_pod_checkpoint_resume_bit_identical(tmp_path, variant):
-    """VERDICT r4 #3: the pod chain survives a restart at segment
+    """The pod chain survives a restart at segment
     granularity — for the flagship AND a second production variant.
     Simulate preemption after 1 segment (run_checkpointed returns None),
     resume — the resumed run restarts from the checkpoint, not from zero,
@@ -92,7 +95,9 @@ def test_pod_checkpoint_resume_bit_identical(tmp_path, variant):
     run AND to the plain un-checkpointed chain."""
     import numpy as np
 
-    sc = harness._scenario_pod_ensemble(n_columns=8, variant=variant)
+    sc = harness._scenario_pod_ensemble(
+        n_columns=8, variant=variant, interpret=True
+    )
 
     # uninterrupted checkpointed run (fresh dir)
     d1 = tmp_path / "full"

@@ -119,7 +119,7 @@ def test_z_sharded_halo_matches_unsharded():
 
 
 def test_halo_independent_of_coalescence_structurally():
-    """Pins the overlap claim of halo.py:10-14 (VERDICT r3 #8): within one
+    """Pins the overlap claim of halo.py:10-14: within one
     RHS evaluation, NOTHING expensive depends on the received halo — the
     ppermute result feeds only the linear stencil tail (concatenate /
     subtract / divide / output), so XLA's latency-hiding scheduler is free
@@ -134,12 +134,12 @@ def test_halo_independent_of_coalescence_structurally():
         spec, data, config.dz, config.vel, norms, axis_name="z"
     )
 
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     import functools
 
     @functools.partial(
         shard_map, mesh=mesh, in_specs=(P("columns", "z"),),
-        out_specs=P("columns", "z"), check_rep=False,
+        out_specs=P("columns", "z"), check_vma=False,
     )
     def one_rhs(y):
         return rhs_local(y, jnp.asarray(0.0, y.dtype))
@@ -220,8 +220,7 @@ def test_halo_independent_of_coalescence_structurally():
 def test_graft_entry_dryrun():
     """The driver's compile-check entry points: single-chip `entry()` jits
     and runs, and `dryrun_multichip(8)` compiles + executes the sharded
-    production paths on the 8-device virtual mesh (ADVICE r4: keep this a
-    standalone, name-selectable test — not fused into an unrelated one)."""
+    production paths on the 8-device virtual mesh (a standalone, name-selectable test)."""
     import sys, os
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
@@ -235,22 +234,22 @@ def test_graft_entry_dryrun():
 
 @pytest.mark.slow
 def test_whole_step_kernel_sharded_matches_unsharded():
-    """The single-kernel whole-SSPRK33-step (interpret mode) sharded over
-    the 8-device mesh equals its unsharded evaluation — the maximally fused
-    production step's sharding path."""
-    from cloudy_tpu.ops import pallas_coalescence as pc
+    """The whole-SSPRK33-step kernel (Pallas interpreter) sharded over the
+    8-device mesh equals its unsharded evaluation — the production step's
+    sharding path."""
+    from cloudy_tpu.ops import triton_coalescence as tc
     from cloudy_tpu.parallel.ensemble import ensemble_whole_step
 
     spec, norms, data, config = _flagship(nz=8)
-    step = pc.make_pallas_rainshaft_step_fn(
+    step = tc.make_triton_rainshaft_step_fn(
         data, config.vel, config.norms, nz=config.nz, dz=config.dz, dt=1.0,
-        block_cols=8, interpret=True,
+        block_cols=1, interpret=True,
     )
-    state = rs.to_soa(jnp.asarray(_ic(config, 8)))  # [n_tot, 64]
+    state = rs.to_soa(jnp.asarray(_ic(config, 8)))  # [n_tot, nz, 8]
 
     mesh = make_mesh(("columns",))
     sharded = jax.jit(ensemble_whole_step(step, mesh))
-    y = jax.device_put(state, NamedSharding(mesh, P(None, "columns")))
+    y = jax.device_put(state, NamedSharding(mesh, P(None, None, "columns")))
     out_sharded = np.asarray(sharded(y))
     out_local = np.asarray(step(state))
     np.testing.assert_allclose(out_sharded, out_local, rtol=1e-12, atol=0.0)

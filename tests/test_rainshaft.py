@@ -117,10 +117,10 @@ def test_column_ensemble_batching():
 
 
 def test_rainshaft_coal_fn_matches_xla_path():
-    """The `coal_fn` hook (fused Pallas kernel, interpret mode) reproduces
-    the XLA coalescence path inside the full rainshaft RHS — the production
-    TPU configuration for the pod-scale ensemble."""
-    from cloudy_tpu.ops import pallas_coalescence as pc
+    """The `coal_fn` hook (the RHS-only Triton kernel, in the Pallas
+    interpreter) reproduces the XLA coalescence path inside the full
+    rainshaft RHS."""
+    from cloudy_tpu.ops import triton_coalescence as tc
 
     spec = SpectrumSpec((Family.GAMMA, Family.GAMMA))
     norms = (1e6, 1e-9)
@@ -129,7 +129,7 @@ def test_rainshaft_coal_fn_matches_xla_path():
     config = rs.RainshaftConfig(spec=spec, nz=8, zmax=3000.0, norms=norms)
 
     rhs_xla = rs.make_rainshaft_rhs(config, data)
-    fn = pc.make_pallas_coal_fn(data, block_cols=16, interpret=True)
+    fn = tc.make_triton_coal_fn(data, block_cols=16, interpret=True)
     rhs_pallas = rs.make_rainshaft_rhs(config, data, coal_fn=fn)
 
     ic1 = rs.initial_condition(config.z, [1e8, 1e-2, 2e-12])

@@ -68,8 +68,8 @@ def test_special_jit_and_grad():
 
 
 def test_gammainc_gl_proven_bound_exact_f2_domain():
-    """The PROVEN worst-case bound behind the bench configuration (VERDICT
-    r2 #7): over the entire (a, x) domain the exact-F2 path can request —
+    """The PROVEN worst-case bound behind the bench configuration: over the
+    entire (a, x) domain the exact-F2 path can request —
     a = 2k + 2M − 2 with k ∈ (eps, 10] and M = 4 ⇒ a ∈ (6, 26], and
     x = min(T/θ, 1e6) ∈ (0, 1e6] — the 12-node Gauss–Legendre evaluator's
     absolute error vs scipy stays below 5e-7 in f64. The fixed-iteration
@@ -102,7 +102,7 @@ def test_gammainc_gl_proven_bound_exact_f2_domain():
 
 
 def test_gammainc_gl_f32():
-    """f32 (the TPU production dtype): the GL evaluator keeps ~1e-5 absolute
+    """f32 (the production dtype): the GL evaluator keeps ~1e-5 absolute
     accuracy over the exact-F2 domain — vs 1.7e-2 for 12-iteration series/CF
     at the corner."""
     from scipy.special import gammainc as sgi
@@ -149,7 +149,7 @@ def test_gammainc_gl_shift_uniform_bound():
     """The shift-4 downward-recurrence extension of gammainc_gl: absolute
     error < 5e-7 UNIFORMLY over a ∈ (0, 10] × x ∈ (0, 1e6] — the small-a
     region where bare gammainc_gl is out of domain and the series/CF pair
-    needs its full iteration budget (VERDICT r3 #2 groundwork)."""
+    needs its full iteration budget."""
     a = np.logspace(-3, 1, 60)
     x = np.concatenate([np.logspace(-6, 6, 80), np.linspace(0.5, 40.0, 160)])
     A, X = np.meshgrid(a, x)
@@ -163,7 +163,7 @@ def test_gammaincinv_gl_proven_bound():
     scipy < 2e-5 over the reachable domain k ∈ [0.02, 10] × p ∈ [0.01,
     0.995] in f64, and < 2e-4 in f32 wherever the true quantile is
     f32-representable. This is the proven-minimal replacement for the
-    32-Newton × 128-iteration defaults (VERDICT r3 #2): ~3x cheaper than
+    32-Newton × 128-iteration defaults: ~3x cheaper than
     even the 8×12 ablation setting at ~1000x better worst-case accuracy."""
     k = np.logspace(np.log10(0.02), 1, 90)
     p = np.array([0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 0.995])
@@ -183,7 +183,7 @@ def test_gammaincinv_gl_proven_bound():
 
 
 def test_gammaincinv_gl_small_k_domain():
-    """ADVICE r4: the closure inversion clips k to (eps, 10], so production
+    """The closure inversion clips k to (eps, 10], so production
     columns reach k far below the 0.02 floor of the main sweep. Pin the
     fast inverse down to the f64 k-clip floor: the small-x start
     ``(p·Γ(a+1))^(1/a)`` is the EXACT leading-order inverse there, so f64
@@ -227,7 +227,7 @@ def test_erf_approx_proven_bound():
     )
     got = np.asarray(special.erf_approx(jnp.asarray(x)))
     assert np.abs(got - serf(x)).max() < 1.6e-7
-    # f32 as well (the TPU production dtype)
+    # f32 as well (the production dtype)
     got32 = np.asarray(special.erf_approx(jnp.asarray(x, jnp.float32)), np.float64)
     assert np.abs(got32 - serf(x)).max() < 1e-6
 
@@ -253,9 +253,8 @@ def test_new_special_fns_jit_and_grad():
 
 
 def test_lgamma_stirling_bound():
-    """The fast-tier 1-divide Stirling-shift lgamma (round-5 divide
-    optimization: a divide costs ~9 mul-slots on this VPU and Lanczos has
-    8 of them): absolute error < 4e-9 over the exact-F2 path's reachable
+    """The fast-tier 1-divide Stirling-shift lgamma (Lanczos has 8
+    divides): absolute error < 4e-9 over the exact-F2 path's reachable
     domain x = 2k+1 ∈ (1, 21] and beyond (x ∈ (0, 50])."""
     x = np.concatenate(
         [np.logspace(-6, 0, 40), np.linspace(1.0, 50.0, 300)]

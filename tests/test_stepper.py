@@ -85,7 +85,7 @@ def test_adaptive_accuracy_tracks_rtol():
 
 def test_adaptive_reports_truncation_on_max_steps():
     """When max_steps trials are exhausted before t1, `reached` is False and
-    t_final records how far the integration actually got (ADVICE r3 #1)."""
+    t_final records how far the integration actually got."""
     f = lambda y, t: -y
     y1, st = stepper.integrate_adaptive(
         f, jnp.asarray([1.0]), 0.0, 1e6, rtol=1e-10, atol=1e-14, max_steps=10

@@ -66,7 +66,7 @@ def test_npz_roundtrip(tmp_path):
 def test_checkpoint_roundtrip_npz(tmp_path):
     state = {"mom": jnp.ones((3, 4)), "t": jnp.asarray(1.5)}
     path = str(tmp_path / "ck")
-    checkpoint.save_checkpoint(path, state, step=7, use_orbax=False)
+    checkpoint.save_checkpoint(path, state, step=7)
     got, step = checkpoint.load_checkpoint(path, 7, like=state)
     assert step == 7
     np.testing.assert_array_equal(np.asarray(got["mom"]), np.ones((3, 4)))
@@ -106,18 +106,6 @@ def test_step_timer():
     assert s["n"] == 3 and s["mean_s"] > 0
 
 
-def test_roofline_sanity():
-    r = metrics.coalescence_roofline(1_000_000, 2, 4, n_grid=76)
-    assert r["flops"] > 0 and r["speed_of_light_s"] > 0
-    assert r["bound"] in ("compute", "memory")
-    # exact-F2 path (no grid) must be strictly cheaper than the grid path
-    r0 = metrics.coalescence_roofline(1_000_000, 2, 4)
-    assert r0["slot_weighted_ops"] < r["slot_weighted_ops"]
-    # the ROOFLINE.json measurement context: the bench config is
-    # compute-bound (VPU), nowhere near the HBM roofline
-    assert r0["bound"] == "compute"
-
-
 def test_assert_no_retrace():
     calls = []
 
@@ -132,3 +120,25 @@ def test_assert_no_retrace():
 def test_hlo_probe():
     n = debug.count_hlo_ops(lambda x: x * 2 + 1, jnp.ones(4), opname="while")
     assert n == 0
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_dir(monkeypatch, tmp_path, env_set):
+    """The command-line entry points keep JAX's compile cache where
+    JAX_COMPILATION_CACHE_DIR says, else at one fixed git-ignored path in
+    the checkout."""
+    import os
+
+    from cloudy_tpu.utils import cache
+
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cache.compile_cache_dir() == str(tmp_path)
+        return
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    path = cache.compile_cache_dir()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert path == cache.DEFAULT_DIR
+    assert os.path.dirname(path) == repo
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert os.path.basename(path) + "/" in f.read().split()

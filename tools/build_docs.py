@@ -1,4 +1,4 @@
-"""Static docs-site builder (VERDICT r4 missing #1).
+"""Static docs-site builder.
 
 The reference builds a Documenter.jl HTML site (docs/make.jl + a deploy
 workflow); this environment ships no mkdocs/sphinx, but the `markdown` +

@@ -1,4 +1,4 @@
-"""Minimal, dependency-free lint gate (VERDICT r4 missing #2).
+"""Minimal, dependency-free lint gate.
 
 The reference enforces formatting in CI (JuliaFormatter.yml + .dev/
 climaformat.jl); this environment ships no ruff/flake8/black, so the gate
@@ -8,8 +8,7 @@ this codebase, run by the CI lint job (.github/workflows/ci.yml):
 - syntax errors (ast.parse of every file),
 - unused imports (module scope; ``import x as _x`` and __init__ re-exports
   via __all__ or bare re-export modules are exempt),
-- duplicate top-level def/class names (silent shadowing — the bug class of
-  ADVICE r4 #1's fused test),
+- duplicate top-level def/class names (silent shadowing),
 - trailing whitespace, tabs in indentation, missing final newline,
 - lines over 99 columns (warning only unless --strict).
 
